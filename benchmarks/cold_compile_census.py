@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """Cold-start census: which programs compile during a fresh genome-scale fit,
-and what each costs (VERDICT r3 #4 — the 532 s cold fit of BENCH_r03).
+and what each costs.
 
-Runs with the persistent compile cache pointed at an EMPTY directory (the
-driver's fresh-container situation) and jax_log_compiles on, timing each
-tracing/compile event around the phases of `VIPRS(ds)` + `fit()`.
+Runs with the persistent compile cache pointed at a new, EMPTY directory
+under $TMPDIR (a fresh machine's situation) and jax_log_compiles on, timing
+each tracing/compile event around the phases of `VIPRS(ds)` + `fit()`.
 
-Usage: VIPRS_TPU_COMPILE_CACHE_DIR=/tmp/census_cache \
-       python benchmarks/cold_compile_census.py [m_variants]
+Usage: python benchmarks/cold_compile_census.py [m_variants]
 """
 
 import logging
 import os
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-os.environ.setdefault('VIPRS_TPU_COMPILE_CACHE_DIR', '/tmp/census_cache_r4')
+# before JAX is imported, which reads it: every compile below is cold
+os.environ['JAX_COMPILATION_CACHE_DIR'] = tempfile.mkdtemp(
+    prefix='census_cache_')
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
@@ -52,7 +54,7 @@ def main():
         else 1_100_000
     ds = build_dataset(m_target)
     log(f"devices: {jax.devices()}  M={ds.m} NB={ds.layout.nb}  "
-        f"cache={os.environ['VIPRS_TPU_COMPILE_CACHE_DIR']}")
+        f"cache={os.environ['JAX_COMPILATION_CACHE_DIR']}")
 
     def phase(name, fn):
         n0 = len(handler.events)

@@ -1,13 +1,12 @@
 #!/usr/bin/env python3
-"""Communication audit for the mesh-sharded EM fit (VERDICT r3 #7).
+"""Communication audit for the mesh-sharded EM fit.
 
 Compiles the production ``em_loop.em_fit`` over a ('blocks', 'grid') mesh on
 the virtual CPU platform and COUNTS the collectives in the compiled HLO —
 total ops, element counts, and bytes — separating the while-loop body
 (per-EM-iteration cost) from one-time setup. The claim being audited: one EM
 iteration communicates only O(S) scalars (the M-step/ELBO partial reductions
-psum'd across the 'blocks' axis), so the v5e-16 scaling projection is
-bandwidth-trivial and rides ICI latency only.
+psum'd across the 'blocks' axis).
 
 Usage:  XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         JAX_PLATFORMS=cpu python benchmarks/comms_audit.py [S]
@@ -99,8 +98,7 @@ def audit(S=4):
     kw = dict(n_sample=float(model.n), m_total=float(model.m),
               init_elbo=None, active0=jnp.ones(model._S, bool),
               max_iter=50, min_iter=1, f_abs_tol=1e-6, x_abs_tol=1e-6,
-              patience=10, tile=model.tile, use_pallas=False, use_skip=False,
-              i0=0, counters0=em_loop.init_counters(model._S),
+              patience=10, tile=model.tile, i0=0, counters0=em_loop.init_counters(model._S),
               sigma_g0=jnp.zeros(model._S, jnp.float64))
     with model._mesh_context():
         lowered = em_loop.em_fit.lower(
@@ -110,29 +108,8 @@ def audit(S=4):
     hlo = compiled.as_text()
 
     # classify per-iteration vs one-time via the op_name metadata XLA
-    # attaches (ops inside the fused loop carry ".../while/body/..."); also
-    # classify each collective's replica groups against the DEPLOYMENT
-    # process partition (v5e-16 = 4 hosts x 4 chips; here scaled to
-    # 4 processes x 2 devices): a group spanning processes rides DCN, a
-    # within-process group rides ICI. GSPMD partitioning is a function of
-    # the global mesh only, so this static classification of the
-    # single-controller HLO equals the multi-process program's.
-    DEVS_PER_PROC = 2
-    grp_re = re.compile(r'replica_groups=\{([^a-z}]*)\}')
-
-    def crosses_process(line):
-        mm2 = grp_re.search(line)
-        if not mm2:
-            return True  # no groups = all devices participate
-        txt = mm2.group(1)
-        for grp in re.findall(r'\{([\d,]+)\}', txt):
-            ids = [int(x) for x in grp.split(',') if x]
-            if len({d // DEVS_PER_PROC for d in ids}) > 1:
-                return True
-        return False
-
+    # attaches (ops inside the fused loop carry ".../while/body/..."):
     rows = {'body': {}, 'cond': {}, 'setup': {}}
-    dcn_body_bytes = 0
     for line in hlo.splitlines():
         s = line.strip()
         mm = _COLL_RE.search(s)
@@ -142,8 +119,6 @@ def audit(S=4):
         e, b = _op_bytes(s, op)
         if '/while/body/' in s:
             sect = rows['body']
-            if crosses_process(s):
-                dcn_body_bytes += b
         elif '/while/cond/' in s:
             sect = rows['cond']
         else:
@@ -167,16 +142,9 @@ def audit(S=4):
             tot_b += b
         print(f"  TOTAL {tot_b} bytes", file=sys.stderr)
     body_bytes = sum(b for _, _, b in rows['body'].values())
-    print(f"--- DCN boundary (deployment partition: "
-          f"{len(jax.devices()) // DEVS_PER_PROC} processes x "
-          f"{DEVS_PER_PROC} devices) ---", file=sys.stderr)
-    print(f"  per-iteration bytes whose replica groups span processes: "
-          f"{dcn_body_bytes} (of {body_bytes} total)", file=sys.stderr)
     import json
     print(json.dumps({"metric": "psum_bytes_per_em_iteration",
                       "value": body_bytes, "unit": "bytes",
-                      "dcn_boundary_bytes": dcn_body_bytes,
-                      "devs_per_proc": DEVS_PER_PROC,
                       "S": model._S, "mesh": dict(mesh.shape)}))
 
 

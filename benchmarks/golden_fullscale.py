@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Full-scale (1.1M-variant) fixed-point parity vs the REFERENCE's own
-compiled kernel (VERDICT r4 next #3).
+compiled kernel.
 
 Round 2 established, on the identical genome-scale problem, that the
 reference's compiled ``e_step`` restarts on negative MSE at iteration 7 (this

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""int8 LD error budget at genome scale (round-4 verdict #9).
+"""int8 LD error budget at genome scale.
 
 The framework's default LD representation is int8-quantized tiles
 (dequantize-on-the-fly, scale 1/127 — the reference exposes the same
@@ -9,8 +9,7 @@ problem twice — once on int8 LD, once on float32 LD — with identical
 theta_0 initialization and the same sweep implementation, and report the
 PIP / posterior-mean / h2 / ELBO deltas.
 
-Output: one JSON line (written to BENCH_int8_budget_r05.json by the
-caller), plus a human-readable log on stderr.
+Output: one JSON line on stdout, plus a human-readable log on stderr.
 
 Usage: python benchmarks/int8_budget.py [m_variants]
 """
@@ -37,8 +36,7 @@ def fit_once(ds, label):
     model = VIPRS(ds)
     t0 = time.time()
     # hold the algorithm fixed across the comparison: the XLA tile loop on
-    # both sides (the hybrid's skip-view residency gate would otherwise
-    # dispatch the two fits differently and confound the precision delta):
+    # both sides, whatever the dispatch policy would pick:
     model.fit(max_iter=1000, sweep_impl='xla')
     secs = time.time() - t0
     res = model.optim_result

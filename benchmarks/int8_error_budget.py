@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""int8 LD error budget at genome scale (VERDICT r4 next #9).
+"""int8 LD error budget at genome scale.
 
 The framework's default packs LD into int8 tiles (scale 1/127), like the
 reference's quantized stores (viprs/model/VIPRS.py:156-166, 201-207 —

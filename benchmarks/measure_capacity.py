@@ -1,13 +1,11 @@
 #!/usr/bin/env python3
-"""Measured capacity runs: the large reference panels on ONE chip.
+"""Measured capacity runs: the large reference panels on ONE device.
 
-BENCH.md's capacity table (9.6M / 18M variants — the reference's MAF>0.1%
-and full-EUR panel scales, docs/download_ld.md:6-13) was accounting until
-round 4; this harness MEASURES the two product paths:
+The reference's MAF>0.1% and full-EUR panel scales (9.6M / 18M variants,
+docs/download_ld.md:6-13); this harness MEASURES the two product paths:
 
-  --scale 9.6m   in-memory: ~10 GB packed int8 LD resident in one chip's
-                 16 GB HBM, joint genome-wide VIPRS fit (the "fits (63%)"
-                 row of the table).
+  --scale 9.6m   in-memory: ~10 GB packed int8 LD resident in one device's
+                 memory, joint genome-wide VIPRS fit.
   --scale 18m    does-not-fit: synthesizes per chromosome straight into a
                  native LD store on disk (host RAM never holds the genome),
                  then drives the REAL CLI (`viprs_fit --device-memory-gb`)

@@ -1,11 +1,10 @@
 #!/usr/bin/env python3
 """Attribute the host-side cost of a steady-state genome-scale VIPRS fit.
 
-Round-3 accounting (BENCH.md): 112 iterations x 6.22 ms = 0.70 s device time,
-but the headline fresh-model fit lands at ~0.98 s — ~0.3 s of host-side work
-(model construction, initialize(), input refresh, dispatch round trips,
-result pulls). This harness breaks that down, in one process on a warm
-compile cache:
+A fresh-model fit costs more than its iterations' device time: host-side
+work (model construction, initialize(), input refresh, dispatch round
+trips, result pulls) sits around it. This harness breaks that down, in one
+process on a warm compile cache:
 
   phase timing : VIPRS(ds) ctor / initialize() / fit() split out
   cProfile     : top host functions by cumulative time inside one fresh fit

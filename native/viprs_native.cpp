@@ -1,6 +1,6 @@
 // Native host-side data kernels for viprs_tpu.
 //
-// The TPU framework's compute path is JAX/XLA/Pallas; this library accelerates
+// The framework's compute path is JAX/XLA/Pallas; this library accelerates
 // the *data* path that feeds it: plink BED 2-bit decoding, LD block
 // accumulation (X^T X), and int8 quantization of correlation tiles. All entry
 // points are exposed C-style for ctypes (viprs_tpu/data/native.py) and have

@@ -7,7 +7,7 @@ mounted location, never copied into this repository. Its purpose is to close
 the "the clean-room NumPy reference (tests/reference_impl.py) might itself be
 mistranscribed" hole behind every parity claim: one sweep and full fixed-point
 runs of the compiled `e_step` / `e_step_mixture` / `e_step_grid` are asserted
-against reference_impl and against the TPU kernels on identical inputs.
+against reference_impl and against this package's sweeps on identical inputs.
 """
 
 import ctypes

@@ -2,7 +2,7 @@
 
 Each of N processes owns ``devs_per_proc`` virtual CPU devices and joins a
 jax.distributed cluster; the global mesh is ('blocks', 'grid') =
-(N*devs_per_proc // 2, 2) — the v5e-16 deployment shape scaled down (4 hosts
+(N*devs_per_proc // 2, 2) — a multi-host deployment scaled down (4 hosts
 x 4 chips -> 4 processes x 2 devices). Unlike multihost_worker.py (raw
 em_fit), this worker drives the FULL policy layer across the process
 boundary: a VIPRSGrid fit with staggered lane convergence (so the chunked

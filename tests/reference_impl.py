@@ -3,7 +3,7 @@
 Implements the published update equations (Zabad et al. 2023 AJHG, supplementary
 material) with strict *sequential* per-variant coordinate ascent in float64 —
 the single-threaded ground-truth ordering that the reference's C++ kernel
-realizes (and that its multithreaded mode only approximates). Our TPU kernels
+realizes (and that its multithreaded mode only approximates). Our sweep kernels
 are validated against the fixed points of this implementation.
 
 This file is test-support code, deliberately simple and slow.
@@ -46,7 +46,7 @@ def seq_e_step(R, std_beta, n_per_snp, gamma, mu, eta, q,
 def tile_e_step(R, std_beta, n_per_snp, gamma, mu, eta, q,
                 sigma_eps, tau_beta, pi, lambda_min=0.0, tile=128, eps=1e-8):
     """Tile-synchronous sweep: Jacobi within a tile, Gauss-Seidel across tiles —
-    the exact update schedule of the TPU kernel, in float64 NumPy.
+    the exact update schedule of the blocked sweep, in float64 NumPy.
     (Single block: R dense over all M variants.)"""
     M = len(std_beta)
     var_tau = n_per_snp * (1.0 + lambda_min) / sigma_eps + tau_beta

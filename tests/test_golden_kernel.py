@@ -160,12 +160,12 @@ class TestCompiledVsCleanRoom:
         for _ in range(12):  # tile schedule needs a few more sweeps to settle
             state, _ = cavi_sweep(ld, state, sbf, nf, hyper,
                                   jnp.ones(1, jnp.float32))
-        eta_tpu = layout.from_flat(np.asarray(state.eta[0]).reshape(-1))[22]
-        np.testing.assert_allclose(eta_tpu, e1, atol=2e-4)
-        assert np.corrcoef(eta_tpu, e1)[0, 1] > 0.9999
+        eta_ours = layout.from_flat(np.asarray(state.eta[0]).reshape(-1))[22]
+        np.testing.assert_allclose(eta_ours, e1, atol=2e-4)
+        assert np.corrcoef(eta_ours, e1)[0, 1] > 0.9999
 
-    def test_tpu_fixed_point_vs_compiled_kernel(self):
-        """The fused TPU EM keeps its parity tolerances against the compiled
+    def test_fixed_point_vs_compiled_kernel(self):
+        """The fused EM keeps its parity tolerances against the compiled
         reference kernel run to its own fixed point."""
         import jax.numpy as jnp
         from viprs_tpu.ops.block_ld import pack_dense_blocks
@@ -206,8 +206,8 @@ class TestCompiledVsCleanRoom:
             init_elbo=jnp.zeros(1, jnp.float64), active0=jnp.ones(1, bool),
             max_iter=400, f_abs_tol=1e-8)
         assert opt.status_is_success(int(res.status[0]))
-        eta_tpu = layout.from_flat(np.asarray(res.state.eta[0]).reshape(-1))[22]
-        np.testing.assert_allclose(eta_tpu, e, atol=5e-4)
+        eta_ours = layout.from_flat(np.asarray(res.state.eta[0]).reshape(-1))[22]
+        np.testing.assert_allclose(eta_ours, e, atol=5e-4)
         np.testing.assert_allclose(float(res.final_elbo[0]), cur, rtol=1e-5)
 
 

@@ -6,7 +6,7 @@ EM loop over the global 8-device ('blocks', 'grid') mesh and must agree with
 each other and with a single-process 8-device run of the identical problem —
 exercising viprs_tpu/parallel/distributed.py + mesh.py across a real process
 boundary (the reference has nothing here; multi-host is a first-class
-deliverable of the TPU framework).
+deliverable of the framework).
 """
 
 import json
@@ -65,9 +65,9 @@ def test_two_process_em_matches_single_process(tmp_path):
 
 
 def test_deployment_shape_grid_fit_with_compaction_and_restart(tmp_path):
-    """The v5e-16 deployment shape scaled down: 4 processes x 2 devices on a
+    """A multi-host deployment scaled down: 4 processes x 2 devices on a
     2D ('blocks', 'grid') mesh, driving the FULL policy layer across the
-    process boundary (VERDICT r4 next #5) — an S=16 grid fit whose staggered
+    process boundary — an S=16 grid fit whose staggered
     lane convergence forces the chunked driver's power-of-2 lane compaction,
     Bayesian model averaging over the surviving lanes, and a
     restart-on-negative-MSE that fires on every process in lockstep."""
@@ -104,9 +104,8 @@ def test_deployment_shape_grid_fit_with_compaction_and_restart(tmp_path):
     widths = [t[0] for t in r0['chunk_trace']]
     assert any(w < 16 for w in widths), (
         f"lane compaction never fired across the process boundary: {widths}")
-    assert all(not p_ and not sk and not hy
-               for _, p_, sk, hy in r0['chunk_trace']), (
-        "a mesh-sharded chunk was routed into a Pallas kernel")
+    assert all(impl == 'xla' for _, impl in r0['chunk_trace']), (
+        "a mesh-sharded chunk was routed off the XLA tile loop")
     assert r0['restart_fired'], "restart ladder did not fire"
     assert np.isfinite(r0['bma_h2'])
 

@@ -384,104 +384,28 @@ class TestEMFit:
                                        np.asarray(r1.state.eta[0]), atol=5e-3)
 
 
-class TestHybridDispatch:
-    """The S=1 activity-gated hybrid dispatch (em_fit use_hybrid): each
-    iteration picks, in-graph, between the XLA tile loop and the
-    block-skipping Pallas sweep on the proposal-mask population count
-    (the iteration-level generalization of e_step.hpp:382's per-variant
-    skip threshold). Pallas runs in interpret mode on CPU."""
 
-    @pytest.fixture(scope='class')
-    def problem(self):
-        sim = simulate_sumstats_blocks(
-            n=3000, block_sizes=(140, 130, 120, 110, 100, 90), h2=0.4,
-            prop_causal=0.05, seed=13)
-        ld, layout = pack_dense_blocks({22: sim['ld_blocks'][22]},
-                                       block_size=128)
-        nb, B = ld.nb, ld.block_size
-        sbf = jnp.asarray(layout.to_flat(sim['std_beta']).reshape(nb, B),
-                          jnp.float32)
-        nf = jnp.asarray(layout.to_flat(sim['n_per_snp']).reshape(nb, B),
-                         jnp.float32)
-        state = make_state(0.05, nb, B)
-        hyper = make_hyper(0.7, float(0.05 * layout.m / 0.4), 0.05)
-        fixm = updates.FixMask(sigma_eps=jnp.zeros(1, bool),
-                               tau_beta=jnp.zeros(1, bool),
-                               pi=jnp.zeros(1, bool))
-        kw = dict(n_sample=3000.0, m_total=float(layout.m),
-                  init_elbo=jnp.zeros(1, jnp.float64),
-                  active0=jnp.ones(1, bool),
-                  max_iter=50, f_abs_tol=0.0, x_abs_tol=0.0, tile=64)
-        return ld, state, sbf, nf, hyper, fixm, kw
-
-    @pytest.fixture()
-    def interp(self, monkeypatch):
-        import jax.experimental.pallas as pl
-        orig_call = pl.pallas_call
-
-        def interp_call(*args, **kwargs):
-            kwargs['interpret'] = True
-            return orig_call(*args, **kwargs)
-
-        monkeypatch.setattr(pl, 'pallas_call', interp_call)
-
-    def test_threshold_zero_is_bitwise_xla(self, problem, interp):
-        """hybrid_frac=0: the gate can only fire with zero active blocks,
-        where the skip branch is a bit-exact pass-through — the whole run
-        must equal the plain XLA loop BITWISE."""
-        ld, state, sbf, nf, hyper, fixm, kw = problem
-        res_x = em_loop.em_fit(ld, state, sbf, nf, hyper, fixm, **kw)
-        res_h = em_loop.em_fit(ld, state, sbf, nf, hyper, fixm,
-                               use_hybrid=True, hybrid_frac=0.0, **kw)
-        np.testing.assert_array_equal(np.asarray(res_h.state.eta),
-                                      np.asarray(res_x.state.eta))
-        np.testing.assert_array_equal(np.asarray(res_h.elbo_hist),
-                                      np.asarray(res_x.elbo_hist))
-        act = np.asarray(res_h.act_hist)
-        n_it = int(res_h.n_iter_total)
-        assert n_it > 0 and np.all(act[1:n_it + 1] >= 0)  # trace populated
-        assert np.all(np.asarray(res_x.act_hist) == -1)   # xla: unmeasured
-
-    def test_threshold_full_is_bitwise_skip(self, problem, interp):
-        """hybrid_frac=1: every iteration takes the skip branch — the run
-        must equal em_fit(use_skip=True) BITWISE."""
-        from viprs_tpu.ops.cavi_jax import ETA_DIFF_EPS
-        ld, state, sbf, nf, hyper, fixm, kw = problem
-        res_s = em_loop.em_fit(ld, state, sbf, nf, hyper, fixm,
-                               use_skip=True, **kw)
-        # pin the gate eps to the skip path's own threshold (the hybrid
-        # default is x_abs_tol, which differs):
-        res_h = em_loop.em_fit(ld, state, sbf, nf, hyper, fixm,
-                               use_hybrid=True, hybrid_frac=1.0,
-                               hybrid_eps=ETA_DIFF_EPS, **kw)
-        np.testing.assert_array_equal(np.asarray(res_h.state.eta),
-                                      np.asarray(res_s.state.eta))
-        np.testing.assert_array_equal(np.asarray(res_h.elbo_hist),
-                                      np.asarray(res_s.elbo_hist))
-        np.testing.assert_array_equal(np.asarray(res_h.act_hist),
-                                      np.asarray(res_s.act_hist))
-
-    def test_hybrid_converges_to_xla_fixed_point(self, problem, interp):
-        """At the production threshold the trajectory mixes both branches;
-        the fixed point must agree with the pure XLA run to f32-state
-        tolerance, and the activity trace must be a sane per-iteration
-        population count. (The early/late activity split that motivates the
-        hybrid only manifests at genome scale, where null blocks' proposals
-        fall below the keep threshold — at this test's size the f32 fixed
-        point sits 1-2 ulps ABOVE eps, so all blocks stay formally active;
-        the branch selection itself is covered bitwise by the two threshold
-        tests above, and the measured split by BENCH.md's activity trace.)"""
-        ld, state, sbf, nf, hyper, fixm, kw = problem
-        res_x = em_loop.em_fit(ld, state, sbf, nf, hyper, fixm, **kw)
-        res_h = em_loop.em_fit(ld, state, sbf, nf, hyper, fixm,
-                               use_hybrid=True, hybrid_frac=0.5, **kw)
-        np.testing.assert_allclose(float(res_h.final_elbo[0]),
-                                   float(res_x.final_elbo[0]), rtol=5e-4)
-        np.testing.assert_allclose(np.asarray(res_h.state.eta),
-                                   np.asarray(res_x.state.eta), atol=5e-3)
-        act = np.asarray(res_h.act_hist)
-        n_it = int(res_h.n_iter_total)
-        trace = act[1:n_it + 1]
-        assert n_it > 0
-        assert np.all((trace >= 0) & (trace <= ld.nb))
-        assert trace[0] == ld.nb        # a fresh fit starts all-active
+@pytest.mark.parametrize('relax', [True, False])
+def test_sweep_computes_in_state_dtype(relax):
+    """A float64 state gives a float64 sweep (the reference that kernels are
+    measured against); it agrees with the float32 sweep to float32 noise."""
+    m = 200
+    R, std_beta, n_per_snp = _problem(m, seed=3)
+    ld, layout = pack_dense_blocks({1: [R]}, block_size=256, quantize=True)
+    nb, B = ld.nb, ld.block_size
+    sb = layout.to_flat({1: std_beta}).reshape(nb, B)
+    nf = layout.to_flat({1: n_per_snp}).reshape(nb, B)
+    st32 = make_state(0.05, nb, B)
+    hy32 = make_hyper(0.9, 1000.0, 0.05)
+    f64 = lambda x: jnp.asarray(x, jnp.float64)  # noqa: E731
+    a, da = cavi_sweep(ld, st32, jnp.asarray(sb, jnp.float32),
+                       jnp.asarray(nf, jnp.float32), hy32, jnp.ones(1),
+                       tile=64, relax=relax)
+    b, db = cavi_sweep(ld, CaviState(*map(f64, st32)), f64(sb), f64(nf),
+                       Hyper(*map(f64, hy32)), f64(jnp.ones(1)), tile=64,
+                       relax=relax)
+    assert a.eta.dtype == jnp.float32 and b.eta.dtype == jnp.float64
+    assert db.dtype == jnp.float64
+    np.testing.assert_allclose(np.asarray(a.eta), np.asarray(b.eta),
+                               atol=1e-6)
+    np.testing.assert_allclose(np.asarray(a.q), np.asarray(b.q), atol=1e-6)

@@ -88,7 +88,7 @@ class TestSharding:
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 (virtual) devices")
 class TestModelMesh:
     """The PRODUCT multi-device path: VIPRS/VIPRSGrid/VIPRSMix accept (and by
-    default auto-create) a ('blocks', 'grid') mesh — the TPU-native analog of
+    default auto-create) a ('blocks', 'grid') mesh — the analog of
     the reference CLI's --n-jobs fan-out (bin/viprs_fit:1079-1086)."""
 
     @pytest.fixture(scope='class')

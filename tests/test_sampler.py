@@ -115,8 +115,8 @@ class TestMixtureParity:
         m.fit(max_iter=300,
               theta_0={'pis': pis, 'tau_betas': taus, 'sigma_epsilon': 0.7})
 
-        eta_tpu = np.concatenate([m.post_mean_beta[c] for c in m.chromosomes])
-        r = np.corrcoef(eta_tpu, ref_fit['eta'])[0, 1]
+        eta_vi = np.concatenate([m.post_mean_beta[c] for c in m.chromosomes])
+        r = np.corrcoef(eta_vi, ref_fit['eta'])[0, 1]
         assert r > 0.99, f"mixture fixed-point correlation too low: {r}"
         # per-component mass is weakly identified (overlapping slabs); the
         # total proportion of causal variants is the comparable quantity:

@@ -16,7 +16,10 @@ CLIs —
 
     python tools/run_walkthrough.py [--m 6000] [--n 8000] [--out docs/walkthrough.md]
 
-On a TPU host the fit runs on the chip; on CPU set JAX_PLATFORMS=cpu.
+The CLIs run as child processes, one at a time, on JAX's default device
+(the GPU where there is one; set JAX_PLATFORMS=cpu for the CPU). This process
+simulates the panel on the CPU and never opens the accelerator, so each child
+gets the whole card.
 """
 
 import argparse
@@ -116,9 +119,16 @@ def main():
     ap.add_argument('--out', default=osp.join(REPO, 'docs', 'walkthrough.md'))
     args = ap.parse_args()
 
+    # this process stays off the accelerator: a JAX process reserves most
+    # of the card's memory, and the CLI children below each need the card
     import jax
-    backend = jax.default_backend()
-    devices = str(jax.devices())
+    jax.config.update('jax_platforms', 'cpu')
+    probe = subprocess.run(
+        [sys.executable, '-c', 'import jax; print(jax.default_backend()); '
+         'print([d.device_kind for d in jax.devices()])'],
+        capture_output=True, text=True, check=True, env=dict(
+            os.environ, PYTHONPATH=REPO)).stdout.split('\n')
+    backend, devices = probe[0], probe[1]
 
     with tempfile.TemporaryDirectory() as wd:
         t0 = time.time()
@@ -239,9 +249,9 @@ signal recovered by the posterior mean effect sizes.
 ## Genome-scale numbers
 
 This document runs a small panel so it regenerates in seconds anywhere.
-The genome-scale (~1.1M variants) benchmarks of the SAME code paths — the
-0.98 s EM fit, the 5.9 s grid(100)+BMA, capacity plans and multi-chip
-scaling — are recorded with their harnesses in [BENCH.md](../BENCH.md).
+The genome-scale (~1.1M variants) runs of the same code paths are
+`chip_smoke.py` and `bench.py`; their measurements, with the card they ran
+on, are in [PERF.md](../PERF.md).
 """
     with open(args.out, 'w') as f:
         f.write(doc)

@@ -12,7 +12,6 @@ import dataclasses
 from typing import Dict, Optional, List
 
 import numpy as np
-import pandas as pd
 import jax.numpy as jnp
 
 from ..ops.block_ld import BlockLD, BlockLayout, pack_dense_blocks, pack_banded
@@ -106,33 +105,6 @@ class SummaryStatsDataset:
             self._mesh_ld_cache[mesh] = shard_ld(mesh, self.ld)
         return self._mesh_ld_cache[mesh]
 
-    def ld_skip_view(self):
-        """A second device residency of the diagonal tiles for the hybrid
-        dispatch's Pallas skip branch (measured in BENCH.md round 5: when
-        both em_fit branches share ONE diag parameter, XLA canonicalizes it
-        into the tile loop's preferred (1,2,0) layout and the Pallas branch
-        pays a full per-iteration relayout copy — 5.4 ms/sweep instead of
-        0.9 at 3%% activity; a distinct row-major buffer removes it).
-
-        Cached, so every fit over this dataset shares one extra copy; costs
-        one diag-sized device-to-device copy and doubles the diag's HBM
-        residency — the dispatch policy only selects the hybrid when that
-        fits (model/_dispatch.py:hybrid_ld_fits).
-        """
-        if getattr(self, '_ld_skip_cache', None) is None:
-            import jax
-            import jax.numpy as jnp
-            from ..ops.block_ld import BlockLD
-            # jitted elementwise copy -> a NEW buffer in the default
-            # row-major layout, without a host round trip:
-            diag2 = jax.jit(lambda x: x + jnp.zeros((), x.dtype))(
-                self.ld.diag)
-            self._ld_skip_cache = BlockLD(
-                diag=diag2, off_data=self.ld.off_data,
-                off_src=self.ld.off_src, off_dst=self.ld.off_dst,
-                mask=self.ld.mask, scale=self.ld.scale)
-        return self._ld_skip_cache
-
     # ------------------------------------------------------------ constructors
     @classmethod
     def from_dense_blocks(cls, ld_blocks: Dict, std_beta: Dict, n_per_snp: Dict,
@@ -170,6 +142,7 @@ class SummaryStatsDataset:
         """Synthesize a minimal SNP table when none was provided."""
         if self.snp_table is not None:
             return self.snp_table
+        import pandas as pd
         tables = {}
         for c, sz in self.shapes.items():
             tables[c] = pd.DataFrame({
@@ -191,7 +164,7 @@ class SummaryStatsDataset:
         import jax
         import jax.numpy as jnp
         from jax import lax
-        from ..ops.block_ld import LD_LAYOUT_THRESHOLD_BYTES
+        from ..ops.memory import chunk_threshold_bytes
 
         @jax.jit
         def _scores(diag, off_data, off_src, off_dst):
@@ -209,12 +182,9 @@ class SummaryStatsDataset:
 
         def _scores_chunked():
             # Capacity scale: the dense reduction materializes the full 4x
-            # f32 conversion of the tiles (40 GB at 9.6M), and an in-graph
-            # lax.scan forces a full relayout copy of the (1,2,0)-placed
-            # diag (ops/block_ld.XLA_DIAG_LAYOUT) — either one OOMs a 16 GB
-            # chip on top of the resident LD. Host-driven chunks keep the
-            # peak temp at one chunk (relayout slice + its f32 view),
-            # whatever the storage layout.
+            # f32 conversion of the tiles (40 GB at 9.6M) on top of the
+            # resident LD. Host-driven chunks keep the peak temp at one
+            # chunk (the slice + its f32 view).
             scale2 = np.float32(self.ld.scale) ** 2
             B = self.ld.block_size
 
@@ -229,8 +199,7 @@ class SummaryStatsDataset:
                 return (f * f).sum(axis=2) * scale2, \
                     (f * f).sum(axis=1) * scale2
 
-            # chunk sized so slice (int8) + its f32 view stay ~0.6 GB: at
-            # capacity scale the resident LD leaves only ~3 GB of HBM free
+            # chunk sized so slice (int8) + its f32 view stay ~0.6 GB
             ch = max(1, int(1.25e8 // (B * B)))
             nb = self.ld.diag.shape[0]
             scores = np.concatenate(
@@ -252,7 +221,7 @@ class SummaryStatsDataset:
             return scores
 
         big = (self.ld.diag.nbytes + self.ld.off_data.nbytes) \
-            > LD_LAYOUT_THRESHOLD_BYTES
+            > chunk_threshold_bytes()
         if big:
             scores = _scores_chunked()
         else:

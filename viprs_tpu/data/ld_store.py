@@ -2,7 +2,7 @@
 
 Native format: one ``chr_<c>.npz`` per chromosome holding the dense LD blocks
 (float32 or int8-quantized, block-diagonal layout) plus a ``chr_<c>.snps.csv``
-variant table — directly re-packable into the TPU BlockLD tiles.
+variant table — directly re-packable into the device BlockLD tiles.
 
 Ingestion of the reference ecosystem's stores (magenpy Zarr-backed banded
 matrices, int8-quantized; consumed surface at SURVEY.md §2.6) is provided via

@@ -2,7 +2,7 @@
 
 Owns the role of magenpy's GWADataLoader in the reference (constructed from LD
 stores + BED genotypes + summary-statistics files; harmonization across sources;
-scoring; GWAS; SURVEY.md §2.6), producing the TPU-facing
+scoring; GWAS; SURVEY.md §2.6), producing the device-facing
 :class:`~viprs_tpu.data.dataset.SummaryStatsDataset` for the models.
 """
 
@@ -664,7 +664,7 @@ class GWADataLoader:
 
     # ------------------------------------------------------------------- misc
     def split_by_chromosome(self):
-        """Per-chromosome shallow copies (API compatibility; the TPU framework
+        """Per-chromosome shallow copies (API compatibility; the framework
         fits all chromosomes jointly as sharded block ranges)."""
         out = {}
         for c in self.chromosomes:

@@ -1,7 +1,7 @@
 """ctypes bridge to the native C++ data kernels (native/libviprs_native.so).
 
-The reference's native layer is its C++/Cython e-step (which on TPU became
-Pallas/XLA kernels); this framework's native layer instead accelerates the
+The reference's native layer is its C++/Cython e-step (which here became
+JAX/XLA and Pallas kernels); this framework's native layer instead accelerates the
 host-side data path: BED 2-bit decoding, block-LD accumulation, int8
 quantization, and banded-LD packing. Every entry point has a NumPy fallback, so
 the library is optional (build with `make -C native`).

@@ -2,14 +2,14 @@
 
 Packing an LD panel (Zarr decompression, banded->block conversion,
 harmonization slicing, int8 tile fill) costs tens of seconds at genome scale —
-an order of magnitude more than the fit it feeds (BENCH.md). The packed result
+an order of magnitude more than the fit it feeds. The packed result
 is a pure function of (LD store bytes, kept-variant subset, block_size,
 quantize), so repeated ``viprs_fit`` invocations on the same panel can skip
 the entire ingestion path and mmap the packed tiles straight from disk.
 
 Layout: ``<root>/<key>/`` with ``diag.npy`` / ``off_data.npy`` /
 ``off_src.npy`` / ``off_dst.npy`` / ``mask.npy`` / ``layout.json`` (+
-``flat_index.npy``). Root defaults to ``~/.cache/viprs_tpu/pack`` and is
+``flat_index.npy``). Root defaults to ``.cache/pack`` in the checkout and is
 overridable via ``VIPRS_TPU_PACK_CACHE`` (set to ``0``/``off`` to disable).
 
 The key hashes file signatures (path, size, mtime) rather than content — the
@@ -38,7 +38,8 @@ def cache_root():
         if env.strip().lower() in ('0', 'off', 'false', 'none', ''):
             return None
         return env
-    return osp.join(osp.expanduser('~'), '.cache', 'viprs_tpu', 'pack')
+    from .. import CACHE_ROOT
+    return osp.join(CACHE_ROOT, 'pack')
 
 
 def file_signature(path):
@@ -118,7 +119,7 @@ def save_packed(key, ld, layout, root=None):
 
 def load_packed(key, root=None):
     """Load a packed (BlockLD, BlockLayout) by key; None on miss."""
-    from ..ops.block_ld import BlockLD, BlockLayout, _place_diag
+    from ..ops.block_ld import BlockLD, BlockLayout
     import jax.numpy as jnp
 
     root = root if root is not None else cache_root()
@@ -131,7 +132,7 @@ def load_packed(key, root=None):
         with open(osp.join(d, 'layout.json')) as f:
             meta = json.load(f)
         ld = BlockLD(
-            diag=_place_diag(np.load(osp.join(d, 'diag.npy'), mmap_mode='r')),
+            diag=jnp.asarray(np.load(osp.join(d, 'diag.npy'), mmap_mode='r')),
             off_data=jnp.asarray(np.load(osp.join(d, 'off_data.npy'),
                                          mmap_mode='r')),
             off_src=jnp.asarray(np.load(osp.join(d, 'off_src.npy'))),

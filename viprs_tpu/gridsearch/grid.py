@@ -10,7 +10,6 @@ the grid state is one name->values dict rather than four parallel attributes.
 """
 
 import numpy as np
-import pandas as pd
 
 # Hyperparameters a grid can span, in the reference's column order.
 GRID_PARAMS = ('sigma_epsilon', 'tau_beta', 'pi', 'lambda_min')
@@ -142,5 +141,21 @@ class HyperparameterGrid:
         flat = [m.reshape(-1) for m in mesh]
         return [dict(zip(names, row)) for row in zip(*flat)]
 
+    def to_columns(self):
+        """The combined grid as ``{name: (n_models,) float64 array}``."""
+        return grid_columns(self)
+
     def to_table(self):
+        import pandas as pd
         return pd.DataFrame(self.combine_grids())
+
+
+def grid_columns(grid):
+    """``{name: (n_models,) float64 array}`` from a HyperparameterGrid, a
+    DataFrame or a mapping of columns — the pandas-free form the grid models
+    keep (``grid_table``)."""
+    if hasattr(grid, 'combine_grids'):
+        rows = grid.combine_grids()
+        return {k: np.asarray([r[k] for r in rows], np.float64)
+                for k in rows[0]}
+    return {str(k): np.asarray(grid[k], np.float64) for k in grid.keys()}

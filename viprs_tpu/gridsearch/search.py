@@ -3,7 +3,7 @@
 Parity with the reference's gridsearch/grid_utils.py (select_best_model over
 {ELBO, validation, pseudo_validation} criteria; ELBO-softmax Bayesian model
 averaging) and a `GridSearch` facade covering HyperparameterSearch.py's role —
-on TPU the "process-parallel grid search" is simply the simultaneous vmapped
+here the "process-parallel grid search" is simply the simultaneous vmapped
 grid fit, so `GridSearch` wraps VIPRSGrid + selection.
 """
 
@@ -152,7 +152,7 @@ def bayesian_model_average(viprs_grid_model, normalization='softmax'):
 
 class GridSearch:
     """Facade replicating the reference's process-parallel `GridSearch`
-    (HyperparameterSearch.py:197-351): on TPU the grid is fit simultaneously
+    (HyperparameterSearch.py:197-351): here the grid is fit simultaneously
     (the vmapped model axis) for grid-capable models, then the best model is
     selected by the criterion.
 
@@ -238,5 +238,5 @@ class GridSearch:
         self.model.fit(**fit_kwargs)
         best = select_best_model(self.model, validation_gdl=self.validation_gdl,
                                  criterion=self.criterion)
-        self.validation_result = self.model.validation_result
+        self.validation_result = self.model.to_validation_table()
         return best

@@ -3,14 +3,13 @@
 API parity with the reference's viprs/model/BayesPRSModel.py (construction from a
 harmonized dataset, posterior slots, prediction, allele-aware harmonization of
 external effect tables, table I/O, PUMAS splitting, pseudo-validation), adapted to
-the TPU framework's SummaryStatsDataset.
+this framework's SummaryStatsDataset.
 """
 
 import logging
 import os.path as osp
 
 import numpy as np
-import pandas as pd
 
 from ..data.dataset import SummaryStatsDataset
 from ..utils.compute import expand_column_names, dict_max, dict_concat
@@ -59,9 +58,7 @@ class BayesPRSModel:
         if mesh is None:
             return contextlib.nullcontext()
         import jax
-        if hasattr(jax.sharding, 'use_mesh'):
-            return jax.sharding.use_mesh(mesh)
-        return mesh
+        return jax.set_mesh(mesh)
 
     # --------------------------------------------------------------- properties
     # pip / post_mean_beta / post_var_beta are lazy: fits keep the posterior
@@ -320,6 +317,7 @@ class BayesPRSModel:
 
         if per_chromosome:
             return tables
+        import pandas as pd
         return pd.concat([tables[c] for c in self.chromosomes], ignore_index=True)
 
     # ----------------------------------------------------------- pseudo metrics
@@ -363,6 +361,7 @@ class BayesPRSModel:
             self.harmonize_data(parameter_table=parameter_table)
 
     def read_inferred_parameters(self, f_names, sep=r"\s+"):
+        import pandas as pd
         if isinstance(f_names, str):
             f_names = [f_names]
         tables = [pd.read_csv(f, sep=sep) for f in f_names]

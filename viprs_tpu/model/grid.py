@@ -2,7 +2,7 @@
 
 The reference fits grid points either serially/pathwise (VIPRSGrid.py:128-226)
 or simultaneously via the ``e_step_grid`` kernel with (M, n_models) matrices and
-an active-model index (e_step.hpp:555-647). On TPU the simultaneous mode is the
+an active-model index (e_step.hpp:555-647). Here the simultaneous mode is the
 natural one — the grid axis S is the batch axis of the blocked CAVI kernel and
 converged models are masked out in-graph — and is the default here.
 ``pathwise=True`` reproduces the reference's warm-started serial schedule.
@@ -13,6 +13,7 @@ import logging
 import numpy as np
 import jax.numpy as jnp
 
+from . import _dispatch
 from .viprs import VIPRS, _logit
 from ..ops.cavi_jax import CaviState, Hyper
 from ..ops.updates import FixMask
@@ -28,15 +29,18 @@ _HYPER_FIELD = {'sigma_epsilon': 'sigma_eps', 'tau_beta': 'tau_beta',
 
 class VIPRSGrid(VIPRS):
     """
-    :ivar grid_table: DataFrame of hyperparameter settings (one row per model).
-    :ivar validation_result: DataFrame summarizing per-model fit outcomes.
+    :ivar grid_table: {hyperparameter: (n_models,) array} settings.
+    :ivar validation_result: {column: (n_models,) array} per-model fit
+        outcomes (``to_validation_table()`` gives it as a DataFrame).
     :ivar optim_results: list of OptimizeResult, one per model.
     :ivar n_models: number of grid points.
     """
 
     def __init__(self, dataset, grid, **kwargs):
-        self.grid_table = grid.to_table() if hasattr(grid, 'to_table') else grid
-        self.n_models = len(self.grid_table)
+        from ..gridsearch.grid import grid_columns
+        self.grid_table = grid_columns(grid)
+        self.n_models = len(next(iter(self.grid_table.values())))
+        self._n_grid_rows = self.n_models
         assert self.n_models >= 1
         self.validation_result = None
         self.optim_results = []
@@ -73,7 +77,7 @@ class VIPRSGrid(VIPRS):
     # ---------------------------------------------------------- initialization
     def initialize_theta(self, theta_0=None):
         """Base initialization, then per-model overrides from the grid rows."""
-        if self._S != len(self.grid_table):
+        if self._S != self._n_grid_rows:
             # collapsed to a single model (post-selection/BMA refits): the
             # winning hyperparameters live in fix_params now.
             return super().initialize_theta(theta_0)
@@ -83,17 +87,17 @@ class VIPRSGrid(VIPRS):
         h = {'sigma_eps': np.full(S, sigma_eps), 'tau_beta': np.full(S, tau_beta),
              'pi': np.full(S, pi), 'lambda_min': np.full(S, lam)}
         for key in _GRID_KEYS:
-            if key in self.grid_table.columns:
-                h[_HYPER_FIELD[key]] = self.grid_table[key].values.astype(np.float64)
+            if key in self.grid_table:
+                h[_HYPER_FIELD[key]] = self.grid_table[key].copy()
         self._hyper = Hyper(**h)
         self._sigma_g = np.zeros(S)
         self._update_fix_mask()
 
     def _update_fix_mask(self):
         S = self._S
-        if S != len(self.grid_table):
+        if S != self._n_grid_rows:
             return self._update_fix_mask_single()
-        gridded = set(k for k in _GRID_KEYS if k in self.grid_table.columns)
+        gridded = set(k for k in _GRID_KEYS if k in self.grid_table)
         fixed = gridded | set(self.fix_params)
         # host numpy (driver-side reads must not block on the device queue):
         self._fix_mask = FixMask(
@@ -144,7 +148,7 @@ class VIPRSGrid(VIPRS):
         self.history['ELBO'] = [row for row in hist[:n_total + 1]]
 
     def _populate_grid_results(self):
-        self.validation_result = self.grid_table.copy()
+        self.validation_result = dict(self.grid_table)
         self.validation_result['ELBO'] = np.asarray(self._last_result.final_elbo)
         self.validation_result['Converged'] = self.converged_models
         self.validation_result['Optimization_message'] = \
@@ -190,7 +194,11 @@ class VIPRSGrid(VIPRS):
                             f_abs_tol=fit_kwargs.get('f_abs_tol', 1e-6),
                             x_abs_tol=fit_kwargs.get('x_abs_tol', 1e-6),
                             patience=fit_kwargs.get('patience', 10),
-                            tile=self.tile)
+                            tile=self.tile,
+                            sweep=_dispatch.select_sweep_impl(
+                                1, self.mesh, fit_kwargs.get('sweep_impl'),
+                                block_size=self._ld.block_size,
+                                tile=self.tile))
             logits[s] = np.asarray(res.state.logits[0])
             mu[s] = np.asarray(res.state.mu[0])
             eta[s] = np.asarray(res.state.eta[0])
@@ -211,7 +219,7 @@ class VIPRSGrid(VIPRS):
         self._sigma_g = sigma_g
         self.update_posterior_moments()
 
-        self.validation_result = self.grid_table.copy()
+        self.validation_result = dict(self.grid_table)
         self.validation_result['ELBO'] = elbos
         self.validation_result['Converged'] = self.converged_models
         self.validation_result['Optimization_message'] = \
@@ -241,8 +249,8 @@ class VIPRSGrid(VIPRS):
         self._sigma_g = np.atleast_1d(self._sigma_g)[idx:idx + 1]
         self._S = 1
         self.n_models = 1
-        self.set_fixed_params({k: v for k, v in
-                               self.grid_table.iloc[idx].to_dict().items()
+        self.set_fixed_params({k: float(v[idx])
+                               for k, v in self.grid_table.items()
                                if k in _GRID_KEYS})
         self._update_fix_mask_single()
         self.update_posterior_moments()

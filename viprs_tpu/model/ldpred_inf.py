@@ -41,7 +41,7 @@ class LDPredInf(BayesPRSModel):
 
     def fit(self, solver='cg', tol=1e-6, maxiter=500, **solver_kwargs):
         """Solve the ridge system (R + lam I) beta = std_beta on device."""
-        assert solver in ('cg',), "TPU build supports the 'cg' solver."
+        assert solver in ('cg',), "only the 'cg' solver is supported."
 
         lam = self.n_snps / (self.n * self.h2)
         lay = self.dataset.layout

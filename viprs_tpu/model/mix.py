@@ -366,26 +366,17 @@ class VIPRSMix(BayesPRSModel):
         """Mixture EM fit. ``fused=True`` (default) runs the whole loop on
         device (ops/mix_em_loop.py); ``fused=False`` falls back to the
         host-stepped loop (needed for exotic per-iteration tracking).
-        Keyword-only (via kwargs): ``sweep_impl`` (None | 'xla' | 'skip' |
-        'pallas' — validated against the dispatch policy), ``inner_steps``,
-        and ``compile_only`` (lower + compile the fused dispatch into the
-        persistent cache, run nothing)."""
-        from ._dispatch import select_sweep_impl
-        sweep_impl = kwargs.pop('sweep_impl', None)
+        Keyword-only (via kwargs): ``inner_steps``, and ``compile_only``
+        (lower + compile the fused dispatch into the persistent cache, run
+        nothing). The sweep is always the XLA tile loop of
+        ``ops/cavi_mix.py``."""
         inner_steps = kwargs.pop('inner_steps', 8)
         compile_only = kwargs.pop('compile_only', False)
-        if sweep_impl == 'hybrid':
-            raise ValueError(
-                "sweep_impl='hybrid' is the single-model VIPRS dispatch; the "
-                "mixture fused path uses its own skip kernel (sweep_impl="
-                "'skip'), which is the measured default on TPU.")
-        select_sweep_impl(1, self.mesh, sweep_impl, min_lanes=1)  # validate
         self._refresh_inputs()
         if fused:
             return self._fit_fused(max_iter, theta_0, param_0, continued,
                                    min_iter, f_abs_tol, x_abs_tol, patience,
-                                   max_restarts, sweep_impl=sweep_impl,
-                                   inner_steps=inner_steps,
+                                   max_restarts, inner_steps=inner_steps,
                                    compile_only=compile_only)
         assert not compile_only, "compile_only requires the fused path"
 
@@ -490,23 +481,13 @@ class VIPRSMix(BayesPRSModel):
 
     def _fit_fused(self, max_iter, theta_0, param_0, continued, min_iter,
                    f_abs_tol, x_abs_tol, patience, max_restarts,
-                   sweep_impl=None, inner_steps=8, compile_only=False):
+                   inner_steps=8, compile_only=False):
         import jax.numpy as jnp
         from ..ops.mix_em_loop import mix_em_fit
 
         if not continued:
             self.initialize(theta_0, param_0)
         self.history.setdefault('ELBO', [])
-
-        # The Pallas mixture sweep (VMEM-resident per-block K-state) wins on
-        # real TPU hardware; the XLA path serves CPU backends and device
-        # meshes (Pallas must never see GSPMD-sharded state — _dispatch.py):
-        from ._dispatch import pallas_allowed, select_sweep_impl
-        if sweep_impl is None:
-            use_pallas = use_skip = pallas_allowed(self.mesh)
-        else:
-            use_pallas, use_skip, _ = select_sweep_impl(
-                1, self.mesh, sweep_impl, min_lanes=1)
 
         restarts = 0
         while True:
@@ -520,7 +501,6 @@ class VIPRSMix(BayesPRSModel):
                 init_elbo=None, max_iter=max_iter, min_iter=min_iter,
                 f_abs_tol=f_abs_tol, x_abs_tol=x_abs_tol, patience=patience,
                 tile=self.tile, inner_steps=inner_steps,
-                use_pallas=use_pallas, use_skip=use_skip,
                 sigma_g0=float(self._sigma_g))
             if compile_only:
                 with self._mesh_context():

@@ -2,7 +2,7 @@
 
 The reference fits ANY model class across grid rows in parallel worker
 processes (viprs/model/gridsearch/HyperparameterSearch.py:197-351, one
-``fit_model_fixed_params`` worker per row). On TPU the mixture model gets the
+``fit_model_fixed_params`` worker per row). Here the mixture model gets the
 same treatment as VIPRSGrid: the grid is a leading batch axis S of the
 variational state, all settings advance in one fused loop
 (ops/mix_em_loop.py:mix_em_fit_batch) with converged-lane masking and the
@@ -29,15 +29,18 @@ _GRID_KEYS = ('sigma_epsilon', 'tau_beta', 'pi', 'lambda_min')
 
 class VIPRSMixGrid(VIPRSMix):
     """
-    :ivar grid_table: DataFrame of hyperparameter settings (one row per model).
-    :ivar validation_result: DataFrame summarizing per-model fit outcomes.
+    :ivar grid_table: {hyperparameter: (n_models,) array} settings.
+    :ivar validation_result: {column: (n_models,) array} per-model fit
+        outcomes (``to_validation_table()`` gives it as a DataFrame).
     :ivar optim_results: list of OptimizeResult, one per model.
     :ivar n_models: number of grid points.
     """
 
     def __init__(self, dataset, grid, K=1, **kwargs):
-        self.grid_table = grid.to_table() if hasattr(grid, 'to_table') else grid
-        self.n_models = len(self.grid_table)
+        from ..gridsearch.grid import grid_columns
+        self.grid_table = grid_columns(grid)
+        self.n_models = len(next(iter(self.grid_table.values())))
+        self._n_grid_rows = self.n_models
         assert self.n_models >= 1
         self.validation_result = None
         self.optim_results = []
@@ -84,10 +87,10 @@ class VIPRSMixGrid(VIPRSMix):
         S, K, m = self.n_models, self.K, self.n_snps
         theta_0 = dict(theta_0 or {})
         theta_0.update(self.fix_params)
-        cols = self.grid_table.columns
+        cols = self.grid_table
 
         if 'pi' in cols:
-            total_pi = self.grid_table['pi'].values.astype(np.float64)
+            total_pi = self.grid_table['pi']
         elif 'pi' in theta_0:
             total_pi = np.full(S, float(theta_0['pi']))
         else:
@@ -96,7 +99,7 @@ class VIPRSMixGrid(VIPRSMix):
         pi = total_pi[:, None] * np.random.dirichlet(np.ones(K), size=S)
 
         if 'sigma_epsilon' in cols:
-            sigma_eps = self.grid_table['sigma_epsilon'].values.astype(np.float64)
+            sigma_eps = self.grid_table['sigma_epsilon']
         elif 'sigma_epsilon' in theta_0:
             sigma_eps = np.full(S, float(theta_0['sigma_epsilon']))
         else:
@@ -110,7 +113,7 @@ class VIPRSMixGrid(VIPRSMix):
 
         h2_lane = np.clip(1.0 - sigma_eps, 1e-3, 1.0 - 1e-3)
         if 'tau_beta' in cols:
-            tau_beta = self.grid_table['tau_beta'].values[:, None] * self.d[None]
+            tau_beta = self.grid_table['tau_beta'][:, None] * self.d[None]
         elif 'tau_betas' in theta_0:
             tau_beta = np.tile(np.asarray(theta_0['tau_betas'],
                                           dtype=np.float64), (S, 1))
@@ -119,7 +122,7 @@ class VIPRSMixGrid(VIPRSMix):
             tau_beta = self.d[None] * global_tau[:, None]
 
         if 'lambda_min' in cols:
-            lam = self.grid_table['lambda_min'].values.astype(np.float64)
+            lam = self.grid_table['lambda_min']
         else:
             lam = np.full(S, float(self.fix_params.get('lambda_min',
                                                        self.lambda_min)))
@@ -156,12 +159,12 @@ class VIPRSMixGrid(VIPRSMix):
     def _batch_fix(self):
         from ..ops.mix_em_loop import MixFixBatch
         S = self.n_models
-        cols = self.grid_table.columns
+        cols = self.grid_table
         se_fixed = ('sigma_epsilon' in cols) or \
             ('sigma_epsilon' in self.fix_params)
         tb_fixed = ('tau_beta' in cols) or ('tau_betas' in self.fix_params)
         if 'pi' in cols:
-            total_pi = self.grid_table['pi'].values.astype(np.float64)
+            total_pi = self.grid_table['pi']
         else:
             total_pi = np.full(S, float(self.fix_params.get('pi', 0.0)))
         return MixFixBatch(
@@ -197,21 +200,6 @@ class VIPRSMixGrid(VIPRSMix):
             chunk_iters = min(100, max_iter) if S >= 8 else max_iter
         chunk_iters = max(1, min(chunk_iters, max_iter))
 
-        # The Pallas batched mixture kernel (VMEM-resident (S, K) state, one
-        # LD stream for all lanes) wins on real TPU hardware; the XLA path
-        # serves CPU backends, device meshes (Pallas must never see
-        # GSPMD-sharded state) and tiny grids — policy in model/_dispatch.py.
-        # sweep_impl (kwargs): None (policy), 'xla', 'pallas' (plain batch),
-        # or 'skip' (activity-gated batch: blocks stream only while some lane
-        # still proposes an update — wins once most lanes have converged).
-        from ._dispatch import select_sweep_impl
-        sweep_impl = kwargs.pop('sweep_impl', None)
-        if sweep_impl == 'hybrid':
-            raise ValueError(
-                "sweep_impl='hybrid' is the single-model VIPRS dispatch; "
-                "mixture grids use the batched Pallas kernel ('pallas') or "
-                "the union-gated skip kernel ('skip').")
-        select_sweep_impl(S * self.K, self.mesh, sweep_impl)  # validate early
         inner_steps = kwargs.pop('inner_steps', 8)
 
         restarts = 0
@@ -285,10 +273,7 @@ class VIPRSMixGrid(VIPRSMix):
                     active0=active_in,
                     sigma_g0=jnp.asarray(sigma_g_in, jnp.float64),
                     i0=it_done, counters0=counters_in,
-                    init_elbo=init_elbo_in,
-                    **dict(zip(('use_pallas', 'use_skip'),
-                               select_sweep_impl(S_run * self.K, self.mesh,
-                                                 sweep_impl)[:2])))
+                    init_elbo=init_elbo_in)
 
             (hyper_np, sg_np, status_np, nit_np, n_total_np, fe_np,
              hist_dev) = jax.device_get(
@@ -385,7 +370,7 @@ class VIPRSMixGrid(VIPRSMix):
             else 'All grid points terminated with errors: '
                  + '; '.join(sorted({r.message for r in self.optim_results})))
 
-        self.validation_result = self.grid_table.copy()
+        self.validation_result = dict(self.grid_table)
         self.validation_result['ELBO'] = self._final_elbo
         self.validation_result['Converged'] = self.converged_models
         self.validation_result['Optimization_message'] = \
@@ -486,7 +471,7 @@ class VIPRSMixGrid(VIPRSMix):
             pi=np.asarray(self._hyper.pi)[idx],
             lambda_min=np.float64(np.asarray(self._hyper.lambda_min)[idx]))
         self._sigma_g = float(np.atleast_1d(self._sigma_g)[idx])
-        row = self.grid_table.iloc[idx].to_dict()
+        row = {k: float(v[idx]) for k, v in self.grid_table.items()}
         self.fix_params.update({k: v for k, v in row.items()
                                 if k in _GRID_KEYS})
         self.optim_result = self.optim_results[idx]

@@ -342,7 +342,7 @@ def hmc_refine(dataset, gamma_mask, pi=0.01, tau_beta=1000.0, sigma_eps=0.9,
     # size's behavior once adaptation stops (f32 energy noise grows with M).
     # 0.72 landed sampling at 0.62 at 150k (round 4, below the 0.65 spec);
     # 0.78 measured 0.82 sampling / 0.70 warmup at 150k with eta-corr 0.9990
-    # and unchanged wall-clock (BENCH.md round 5) — inside the healthy
+    # and unchanged wall-clock — inside the healthy
     # 0.6-0.9 band and above the spec:
     delta = 0.78
     mu = np.log(10.0 * eps0)

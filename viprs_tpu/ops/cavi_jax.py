@@ -1,13 +1,13 @@
 """Blocked CAVI e-step sweep — XLA implementation.
 
-TPU-native re-design of the reference's sequential coordinate-ascent kernel
+Accelerator re-design of the reference's sequential coordinate-ascent kernel
 (``e_step`` in viprs/model/vi/e_step.hpp:343-442 and ``e_step_grid``
 at :555-647):
 
 - tiles of T=128 coordinates update *jointly* (Jacobi within tile) from the
   current residual ``q``;
 - tiles within a block update *sequentially* (Gauss-Seidel), with the rank-T
-  q-update expressed as an (S,T)@(T,B) MXU matmul, where S is the model/grid
+  q-update expressed as an (S,T)@(T,B) matrix product, where S is the model/grid
   axis (the reference's (M, n_models) matrices become a leading batch axis);
 - blocks update in parallel (exact for block-diagonal LD; one-sweep-stale at
   block boundaries for banded LD — a deterministic, *stronger* synchronization
@@ -17,7 +17,7 @@ at :555-647):
   pass, e_step.hpp:435-441).
 
 State layout: all per-variant state is (S, NB, B) float32 — B (a multiple of
-128) rides the TPU lane dimension; S is the model-grid batch axis.
+128) is the contiguous minor dimension; S is the model-grid batch axis.
 
 The per-variant update equations (Zabad et al. 2023 AJHG, as implemented at
 VIPRS.py:381-424):
@@ -38,8 +38,13 @@ import jax.numpy as jnp
 from jax import lax
 
 from .block_ld import BlockLD
+from .memory import chunk_threshold_bytes, off_scan_threshold_bytes
 
 F32 = jnp.float32
+#: Every float32 product on the fit path runs at full float32 precision: a
+#: backend may otherwise lower an f32 dot to TF32 (about three decimal
+#: digits), far coarser than the 1e-6 tolerances the fit converges at.
+HIGHEST = lax.Precision.HIGHEST
 # The reference zeroes updates below max(machine eps, 1e-8) (e_step.hpp:382).
 ETA_DIFF_EPS = 1e-8
 
@@ -69,28 +74,14 @@ class Hyper(NamedTuple):
     lambda_min: jnp.ndarray
 
 
-def _dequant_matmul(d_t, rows, scale, s1_reduce=False):
-    """(S,T) @ (T,B) with on-the-fly dequantization of the LD tile.
-
-    ``s1_reduce``: at S == 1 lower as a fused multiply + T-axis reduction
-    instead of an M=1 systolic matmul (which wastes 127/128 of the MXU on
-    weight loading). Only used when measurements favor it.
-    """
-    if s1_reduce and d_t.shape[0] == 1:
-        out = jnp.sum(d_t[0][:, None] * rows.astype(F32), axis=0,
-                      keepdims=True)
-    else:
-        out = jnp.dot(d_t, rows.astype(F32), preferred_element_type=F32)
+def _dequant_matmul(d_t, rows, scale):
+    """(S,T) @ (T,B) with on-the-fly dequantization of the LD tile."""
+    dt = d_t.dtype
+    out = jnp.dot(d_t, rows.astype(dt), precision=HIGHEST,
+                  preferred_element_type=dt)
     if scale != 1.0:
-        out = out * F32(scale)
+        out = out * jnp.asarray(scale, dt)
     return out
-
-
-#: Above this off-tile byte size, _off_contrib streams the coupling tiles
-#: one at a time: the f32 view of the int8 tiles is used by TWO einsums, so
-#: XLA materializes the full 4x dequantized copy (9.3 GB at the 9.6M panel
-#: — OOMs one chip on top of the 12.4 GB packed LD).
-OFF_SCAN_THRESHOLD_BYTES = 1e9
 
 
 def _off_contrib(ld: BlockLD, v):
@@ -99,24 +90,28 @@ def _off_contrib(ld: BlockLD, v):
 
     v: (S, NB, B). Returns (S, NB, B).
     """
-    if ld.off_data.nbytes > OFF_SCAN_THRESHOLD_BYTES:
+    if ld.off_data.nbytes > off_scan_threshold_bytes():
         return _off_contrib_scanned(ld, v)
-    U = ld.off_data.astype(F32)                       # (n_off, B, B)
+    dt = v.dtype
+    U = ld.off_data.astype(dt)                        # (n_off, B, B)
     v_dst = jnp.take(v, ld.off_dst, axis=1)           # (S, n_off, B)
     v_src = jnp.take(v, ld.off_src, axis=1)
-    row_part = jnp.einsum('oij,soj->soi', U, v_dst, preferred_element_type=F32)
-    col_part = jnp.einsum('oji,soj->soi', U, v_src, preferred_element_type=F32)
+    row_part = jnp.einsum('oij,soj->soi', U, v_dst, precision=HIGHEST,
+                          preferred_element_type=dt)
+    col_part = jnp.einsum('oji,soj->soi', U, v_src, precision=HIGHEST,
+                          preferred_element_type=dt)
     out = jnp.zeros_like(v)
     out = out.at[:, ld.off_src].add(row_part)
     out = out.at[:, ld.off_dst].add(col_part)
     if ld.scale != 1.0:
-        out = out * F32(ld.scale)
+        out = out * jnp.asarray(ld.scale, dt)
     return out
 
 
 def _off_contrib_scanned(ld: BlockLD, v):
     """Capacity-scale _off_contrib: one (B, B) coupling tile dequantized at
     a time (peak f32 temp = one tile instead of the whole off stack)."""
+    dt = v.dtype
     v_dst = jnp.take(v, ld.off_dst, axis=1)           # (S, n_off, B)
     v_src = jnp.take(v, ld.off_src, axis=1)
     v_dst_t = jnp.moveaxis(v_dst, 1, 0)               # (n_off, S, B)
@@ -124,9 +119,11 @@ def _off_contrib_scanned(ld: BlockLD, v):
 
     def body(_, xs):
         U_b, vd, vs = xs                              # (B,B), (S,B), (S,B)
-        Uf = U_b.astype(F32)
-        row = jnp.einsum('ij,sj->si', Uf, vd, preferred_element_type=F32)
-        col = jnp.einsum('ji,sj->si', Uf, vs, preferred_element_type=F32)
+        Uf = U_b.astype(dt)
+        row = jnp.einsum('ij,sj->si', Uf, vd, precision=HIGHEST,
+                         preferred_element_type=dt)
+        col = jnp.einsum('ji,sj->si', Uf, vs, precision=HIGHEST,
+                         preferred_element_type=dt)
         return None, (row, col)
 
     _, (row_t, col_t) = lax.scan(body, None, (ld.off_data, v_dst_t, v_src_t))
@@ -134,14 +131,15 @@ def _off_contrib_scanned(ld: BlockLD, v):
     out = out.at[:, ld.off_src].add(jnp.moveaxis(row_t, 0, 1))
     out = out.at[:, ld.off_dst].add(jnp.moveaxis(col_t, 0, 1))
     if ld.scale != 1.0:
-        out = out * F32(ld.scale)
+        out = out * jnp.asarray(ld.scale, dt)
     return out
 
 
 @jax.jit
 def _compute_q_dense(ld: BlockLD, eta):
     diag_f = ld.diag.astype(F32)
-    q = jnp.einsum('bij,sbj->sbi', diag_f, eta, preferred_element_type=F32)
+    q = jnp.einsum('bij,sbj->sbi', diag_f, eta, precision=HIGHEST,
+                   preferred_element_type=F32)
     if ld.scale != 1.0:
         q = q * F32(ld.scale)
     q = q - eta  # remove the unit diagonal
@@ -160,7 +158,7 @@ def _compute_q_scanned(ld: BlockLD, eta):
     def body(_, xs):
         D_b, e_b = xs                                  # (B, B), (S, B)
         q_b = jnp.einsum('ij,sj->si', D_b.astype(F32), e_b,
-                         preferred_element_type=F32)
+                         precision=HIGHEST, preferred_element_type=F32)
         if ld.scale != 1.0:
             q_b = q_b * F32(ld.scale)
         return None, q_b
@@ -178,8 +176,8 @@ def compute_q(ld: BlockLD, eta, chunked=None):
     eta: (S, NB, B) -> q: (S, NB, B). Jitted, so the int8->f32 dequantization
     fuses into the matmul tiles instead of materializing a full f32 copy of
     the LD (the eager path did — 4x the LD bytes in HBM, 39 GB at 9.6M
-    variants). ``chunked`` (default: tiles above the relayout threshold)
-    streams block-by-block so peak temp memory is one (B, B) tile.
+    variants). ``chunked`` (default: tiles above the memory plan's chunk
+    threshold, ops/memory.py) streams block-by-block so peak temp memory is one (B, B) tile.
 
     The chunk decision is per DEVICE: when ``ld.diag`` is GSPMD-sharded over
     the 'blocks' mesh axis, the dense einsum 'bij,sbj->sbi' partitions
@@ -188,7 +186,6 @@ def compute_q(ld: BlockLD, eta, chunked=None):
     only chunks if its per-device share exceeds the threshold.
     """
     if chunked is None:
-        from .block_ld import LD_LAYOUT_THRESHOLD_BYTES
         n_dev = 1
         sh = getattr(ld.diag, 'sharding', None)
         if sh is not None:
@@ -196,7 +193,7 @@ def compute_q(ld: BlockLD, eta, chunked=None):
                 n_dev = max(1, len(sh.device_set))
             except (AttributeError, TypeError):
                 n_dev = 1
-        chunked = ld.diag.nbytes / n_dev > LD_LAYOUT_THRESHOLD_BYTES
+        chunked = ld.diag.nbytes / n_dev > chunk_threshold_bytes()
     return (_compute_q_scanned if chunked else _compute_q_dense)(ld, eta)
 
 
@@ -211,7 +208,7 @@ def refresh_q(ld: BlockLD, q, eta_diff):
 
 def _block_tile_loop(D_b, beta_b, n_b, mask_b, logits_b, mu_b, eta_b, q_b,
                      hyper: Hyper, active, scale, tile, n_tiles, relax,
-                     inner_steps, w_once=False, s1_reduce=False):
+                     inner_steps):
     """Gauss-Seidel over tiles within one LD block.
 
     Within a tile the T coordinates update jointly (Jacobi), which overshoots
@@ -238,7 +235,7 @@ def _block_tile_loop(D_b, beta_b, n_b, mask_b, logits_b, mu_b, eta_b, q_b,
     pi_ = hyper.pi[:, None]
     base_logit = jnp.log(pi_) - jnp.log1p(-pi_) + 0.5 * jnp.log(tau_b)
     act = active[:, None]
-    on = (active > 0.0).astype(F32)[:, None]
+    on = (active > 0.0).astype(q_b.dtype)[:, None]
 
     def body(t, carry):
         logits_b, mu_b, eta_b, q_b = carry
@@ -263,7 +260,8 @@ def _block_tile_loop(D_b, beta_b, n_b, mask_b, logits_b, mu_b, eta_b, q_b,
         # dominant HBM traffic of the whole sweep at S=1).
         R_tt = lax.dynamic_slice(D_rows, (0, idx), (tile, tile))
         R_abs = jnp.abs(R_tt)
-        R_abs_diag = jnp.diagonal(R_abs).astype(F32)[None, :] * F32(scale)
+        R_abs_diag = jnp.diagonal(R_abs).astype(q_b.dtype)[None, :] \
+            * jnp.asarray(scale, q_b.dtype)
 
         # Inner fixed-point iterations on the tile: each pass recomputes the
         # coordinate updates from a tile-locally refreshed q, converging toward
@@ -274,19 +272,20 @@ def _block_tile_loop(D_b, beta_b, n_b, mask_b, logits_b, mu_b, eta_b, q_b,
         mu_cur = mu_t
         eta_cur = eta_t
         q_cur = q_t
-        w = None
-        for step in range(inner_steps):
+        for _ in range(inner_steps):
             mu_star = mu_mult_t * (beta_t - q_cur)
             u_star = base_logit - 0.5 * jnp.log(var_tau_t) \
                 + 0.5 * var_tau_t * mu_star * mu_star
             g_star = jax.nn.sigmoid(u_star)
-            if relax and not (w_once and step > 0):
-                # gamma-weighted within-tile row dominance -> per-coord step:
+            if relax:
+                # gamma-weighted within-tile row dominance -> per-coord step
+                # (recomputed every pass: a weight frozen from the first pass
+                # overshoots on stiff blocks, see DESIGN.md):
                 coupling = _dequant_matmul(g_star * jnp.abs(mu_mult_t), R_abs,
-                                           scale, s1_reduce=s1_reduce)
+                                           scale)
                 coupling = coupling - R_abs_diag * g_star * jnp.abs(mu_mult_t)
                 w = act / (1.0 + coupling)
-            elif not relax:
+            else:
                 w = act
             g_cur = g_cur + w * (g_star - g_cur)
             mu_cur = mu_cur + w * (mu_star - mu_cur)
@@ -294,8 +293,7 @@ def _block_tile_loop(D_b, beta_b, n_b, mask_b, logits_b, mu_b, eta_b, q_b,
             d_in = (eta_new - eta_cur) * mask_t * on
             # refresh the local q for the next inner pass (within-tile only;
             # discarded afterwards — the block-wide update uses d_t below):
-            q_cur = q_cur + _dequant_matmul(d_in, R_tt, scale,
-                                            s1_reduce=s1_reduce) - d_in
+            q_cur = q_cur + _dequant_matmul(d_in, R_tt, scale) - d_in
             eta_cur = eta_cur + d_in
 
         g_new, mu_new = g_cur, mu_cur
@@ -314,7 +312,7 @@ def _block_tile_loop(D_b, beta_b, n_b, mask_b, logits_b, mu_b, eta_b, q_b,
 
         # Rank-T q update over the whole block: q_b += d_t @ R[tile_rows, :].
         # (R symmetric: row-slice == column-slice transposed.)
-        q_b = q_b + _dequant_matmul(d_t, D_rows, scale, s1_reduce=s1_reduce)
+        q_b = q_b + _dequant_matmul(d_t, D_rows, scale)
         # The stored diagonal R_jj = 1 also updated q at the focal variants;
         # q excludes the diagonal, so correct it (cf. e_step.hpp:423-428).
         q_tt = lax.dynamic_slice(q_b, (0, idx), (S, tile))
@@ -325,12 +323,10 @@ def _block_tile_loop(D_b, beta_b, n_b, mask_b, logits_b, mu_b, eta_b, q_b,
     return lax.fori_loop(0, n_tiles, body, (logits_b, mu_b, eta_b, q_b))
 
 
-@partial(jax.jit, static_argnames=('tile', 'relax', 'inner_steps', 'w_once',
-                                   's1_reduce'))
+@partial(jax.jit, static_argnames=('tile', 'relax', 'inner_steps'))
 def cavi_sweep(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
                hyper: Hyper, active, damping=1.0, tile: int = 128,
-               relax: bool = True, inner_steps: int = 8, w_once: bool = False,
-               s1_reduce: bool = False):
+               relax: bool = True, inner_steps: int = 8):
     """One full CAVI e-step sweep over all blocks and models.
 
     :param ld: BlockLD operator.
@@ -346,20 +342,23 @@ def cavi_sweep(ld: BlockLD, state: CaviState, std_beta, n_per_snp,
     :param relax: enable gamma-weighted per-coordinate under-relaxation within
         tiles (see _block_tile_loop); disable only for schedule-parity tests.
     :returns: (new_state, eta_diff) where eta_diff = eta_new - eta_old.
+
+    The sweep computes in the dtype of ``state``: float32 in every fit; a
+    float64 state gives the float64 sweep that kernels are measured against.
     """
     B = ld.block_size
     assert B % tile == 0
     n_tiles = B // tile
     eta0 = state.eta
 
-    active = active.astype(F32) * (jnp.ones_like(active, F32) * damping)
+    dt = state.eta.dtype
+    active = active.astype(dt) * (jnp.ones_like(active, dt) * damping)
 
     def per_block(D_b, beta_b, n_b, mask_b, logits_b, mu_b, eta_b, q_b):
         return _block_tile_loop(D_b, beta_b, n_b, mask_b,
                                 logits_b, mu_b, eta_b, q_b,
                                 hyper, active, ld.scale, tile, n_tiles, relax,
-                                inner_steps, w_once=w_once,
-                                s1_reduce=s1_reduce)
+                                inner_steps)
 
     logits, mu, eta, q = jax.vmap(
         per_block,

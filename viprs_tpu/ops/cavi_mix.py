@@ -1,9 +1,9 @@
 """Blocked CAVI sweep for the sparse Gaussian-mixture prior (VIPRSMix).
 
-TPU re-design of ``e_step_mixture`` (viprs/model/vi/e_step.hpp:447-551): K slab
+Accelerator re-design of ``e_step_mixture`` (viprs/model/vi/e_step.hpp:447-551): K slab
 components ride a leading axis of the variational state; per tile, the K+1
 component logits (K slabs + null) go through a softmax, the scalar eta update
-feeds the same MXU rank-T q-update as the spike-and-slab kernel.
+feeds the same rank-T q-update as the spike-and-slab kernel.
 
 State layout: gamma/mu are (K, NB, B); eta/q are (NB, B). Hyperparameters:
 sigma_eps/lambda_min scalars, tau_beta/pi are (K,) vectors.
@@ -17,7 +17,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from .block_ld import BlockLD
-from .cavi_jax import _dequant_matmul, _off_contrib
+from .cavi_jax import HIGHEST, _dequant_matmul, _off_contrib
 
 F32 = jnp.float32
 
@@ -111,7 +111,7 @@ def _mix_block_tile_loop(D_b, beta_b, n_b, mask_b, gamma_b, mu_b, eta_b, q_b,
             # to the block matmul).
             pip_star = jnp.sum(g_star, axis=0)                     # (T,)
             coupling = jnp.dot(pip_star * mu_mult_max, R_abs,
-                               preferred_element_type=F32)
+                               precision=HIGHEST, preferred_element_type=F32)
             coupling = coupling - R_abs_diag * pip_star * mu_mult_max
             w = (act / (1.0 + coupling))[None, :]                  # (1,T)
 
@@ -119,7 +119,7 @@ def _mix_block_tile_loop(D_b, beta_b, n_b, mask_b, gamma_b, mu_b, eta_b, q_b,
             mu_cur = mu_cur + w * (mu_star - mu_cur)
             eta_new = jnp.sum(g_cur * mu_cur, axis=0)
             d_in = (eta_new - eta_cur) * mask_t * on
-            q_cur = q_cur + jnp.dot(d_in[None, :], R_tt,
+            q_cur = q_cur + jnp.dot(d_in[None, :], R_tt, precision=HIGHEST,
                                     preferred_element_type=F32)[0] - d_in
             eta_cur = eta_cur + d_in
 
@@ -154,8 +154,8 @@ def _mix_block_tile_loop_batch(D_b, beta_b, n_b, mask_b, gamma_b, mu_b,
                                tile, n_tiles, inner_steps):
     """Grid-batched tile loop: the lane axis S rides INSIDE the block loop so
     the LD tiles stream ONCE per sweep for all lanes and the rank-T q-update
-    is an (S, T) @ (T, B) MXU matmul (lane-outside vmapping re-reads the LD
-    per lane and lowers to VPU-sized ops — measured ~6x slower at S=20).
+    is an (S, T) @ (T, B) matrix product (lane-outside vmapping re-reads the
+    LD per lane and lowers to vector-sized ops).
 
     gamma_b/mu_b: (S, K, B); eta_b/q_b: (S, B); D_b: (B, B);
     hyper: sigma_eps/lambda_min (S,), tau_beta/pi (S, K); active: (S,) f32.
@@ -312,10 +312,8 @@ def mix_stats(state: MixState, var_tau, std_beta, mask):
     path, and the reason the batched mixture EM body is cheap): every
     elementwise term — including the entropy logs — is computed in FLOAT32,
     the minor (B) axis is summed in f32, and only the per-block partial
-    sums are upcast to float64 for the cross-block accumulation. TPU f64 is
-    software-emulated; the previous full-f64 elementwise entropy over
-    (S, K, NB, B) dominated the batched mixture grid's iteration cost
-    (measured round 5, BENCH.md).
+    sums are upcast to float64 for the cross-block accumulation, which keeps
+    the elementwise work over (S, K, NB, B) in float32.
 
     Returns dict with per-component (K,) and scalar reductions.
     """

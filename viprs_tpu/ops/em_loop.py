@@ -56,9 +56,6 @@ class EMCarry(NamedTuple):
     max_eta_diff: jnp.ndarray    # (S,) f32
     fix_se: jnp.ndarray          # (S,) bool — sigma_eps fixed (set by restart)
     restarts_left: jnp.ndarray   # (S,) i32 — in-graph restart budget
-    act_hist: jnp.ndarray        # (max_iter+1,) i32 — active-block count per
-    #                              iteration (-1 where not measured; only the
-    #                              skip/hybrid dispatches compute the mask)
 
 
 class EMCounters(NamedTuple):
@@ -99,7 +96,6 @@ class EMResult(NamedTuple):
     counters: EMCounters
     max_eta_diff: jnp.ndarray
     restarts_used: jnp.ndarray = None  # (S,) i32 — in-graph restarts taken
-    act_hist: jnp.ndarray = None  # (max_iter+1,) i32 active-block trace
 
 
 def _hyper_f32(h: Hyper) -> Hyper:
@@ -107,8 +103,7 @@ def _hyper_f32(h: Hyper) -> Hyper:
 
 
 @partial(jax.jit, static_argnames=(
-    'tile', 'max_iter', 'min_iter', 'inner_steps', 'use_pallas', 'use_skip',
-    'use_hybrid', 'hybrid_frac', 'hybrid_eps', 'max_restarts'))
+    'tile', 'max_iter', 'min_iter', 'inner_steps', 'sweep', 'max_restarts'))
 def em_fit(ld: BlockLD,
            state0: CaviState,
            std_beta, n_per_snp,
@@ -125,12 +120,7 @@ def em_fit(ld: BlockLD,
            patience: int = 10,
            tile: int = 128,
            inner_steps: int = 8,
-           use_pallas: bool = False,
-           use_skip: bool = False,
-           use_hybrid: bool = False,
-           hybrid_frac: float = 0.35,
-           hybrid_eps: float = None,
-           ld_skip: BlockLD = None,
+           sweep: str = 'xla',
            i0=0,
            counters0: EMCounters = None,
            sigma_g0=None,
@@ -159,19 +149,10 @@ def em_fit(ld: BlockLD,
         computed in-graph — the whole fit stays ONE dispatch. The driver
         enables this only on the single-dispatch S=1 path; chunked runs keep
         the host restart (identical trajectory either way).
-    :param use_hybrid: S==1 only — the activity-gated HYBRID dispatch: each
-        iteration computes the per-block proposal mask (no LD traffic) and
-        picks, via ``lax.cond``, the block-skipping Pallas sweep when at most
-        ``hybrid_frac`` of the blocks are active, the all-active XLA tile
-        loop otherwise. Generalizes the reference's per-variant skip
-        threshold (e_step.hpp:382,404-413) to the iteration level. The
-        active-block trace comes back in ``EMResult.act_hist``.
-    :param hybrid_eps: gate epsilon for the hybrid's proposal mask. Default
-        ``None`` = ``x_abs_tol``: a skipped block's foregone update is below
-        the per-step tolerance the fit itself converges at. Pass
-        ``cavi_jax.ETA_DIFF_EPS`` for the machine-precision gate (then
-        skipping is exact, but at block granularity it essentially never
-        fires while the fit is running — measured in BENCH.md round 5).
+    :param sweep: e-step implementation, as chosen by
+        ``model/_dispatch.select_sweep_impl``: ``'xla'`` (the batched tile
+        loop, ops/cavi_jax.py) or ``'fused'`` (the per-block Pallas kernel,
+        ops/cavi_fused.py).
     :returns: EMResult (``status == MAX_ITER`` means the lane ran out of THIS
         call's iteration budget — a chunked driver continues those lanes).
     """
@@ -214,7 +195,6 @@ def em_fit(ld: BlockLD,
         max_eta_diff=jnp.zeros(S, F32),
         fix_se=jnp.broadcast_to(jnp.asarray(fix.sigma_eps, bool), (S,)),
         restarts_left=jnp.full(S, max_restarts, I32),
-        act_hist=jnp.full(max_iter + 1, -1, I32),
     )
 
     def cond(c: EMCarry):
@@ -227,83 +207,11 @@ def em_fit(ld: BlockLD,
         act_f = c.active.astype(F32) * c.damping
 
         # ---- E-step ----
-        n_act_blk = jnp.asarray(-1, I32)   # active-block count (if measured)
-        if use_hybrid:
-            # HYBRID activity-gated dispatch (S == 1): pick per iteration
-            # between the all-active XLA tile loop and the block-skipping
-            # Pallas sweep, on the live proposal-mask population count. The
-            # mask is elementwise over M (no LD traffic). The gate epsilon
-            # defaults to x_abs_tol — the fit's own per-step convergence
-            # tolerance: a block whose max first-step proposal is below it
-            # already satisfies the x-criterion locally, so freezing it for
-            # the iteration perturbs the trajectory by less than the
-            # tolerance the fit converges at. (The machine-precision
-            # ETA_DIFF_EPS gate measured out: at block granularity the max
-            # over ~1000 lanes virtually never falls below 1e-8 while the
-            # fit is still running — activity stayed at 97%, BENCH.md r5.)
-            assert S == 1, "hybrid dispatch is the single-model policy"
-            from .cavi_pallas import (cavi_sweep_pallas_s1_skip,
-                                      block_proposal_mask)
-            gate_eps = x_abs_tol if hybrid_eps is None else hybrid_eps
-            blk = block_proposal_mask(ld, c.state, std_beta, n_per_snp,
-                                      h32, eps=gate_eps)[0]        # (NB,)
-            blk = blk & (act_f[0] > 0.0)
-            n_act_blk = jnp.sum(blk).astype(I32)
-            thresh = I32(int(hybrid_frac * blk.shape[0]))
-            # The skip branch consumes its OWN diag buffer (ld_skip,
-            # dataset.ld_skip_view): sharing one parameter lets XLA
-            # canonicalize it into the tile loop's preferred (1,2,0) layout
-            # and the Pallas branch then pays a full per-iteration relayout
-            # copy (measured 5.4 vs 0.9 ms/sweep at 3% activity, BENCH.md
-            # round 5).
-            ld_for_skip = ld if ld_skip is None else ld_skip
-
-            def _skip_sweep(operands):
-                st, af, bm = operands
-                return cavi_sweep_pallas_s1_skip(
-                    ld_for_skip, st, std_beta, n_per_snp, h32, af, bm,
-                    tile=tile, inner_steps=inner_steps)
-
-            def _xla_sweep(operands):
-                st, af, _ = operands
-                return cavi_sweep(ld, st, std_beta, n_per_snp, h32, af,
-                                  tile=tile, inner_steps=inner_steps)
-
-            state, eta_diff = lax.cond(n_act_blk <= thresh,
-                                       _skip_sweep, _xla_sweep,
-                                       (c.state, act_f, blk))
-        elif use_skip and S == 1:
-            # Block-skipping sweep: stream (and compute) only the LD blocks
-            # whose first-step CAVI proposal still moves — the block-level
-            # analog of the reference's per-variant skip threshold
-            # (e_step.hpp:382,404-413). After the early iterations only a few
-            # percent of blocks remain active, so the average sweep cost drops
-            # by an order of magnitude (measured in BENCH.md).
-            from .cavi_pallas import (cavi_sweep_pallas_s1_skip,
-                                      block_proposal_mask)
-            blk = block_proposal_mask(ld, c.state, std_beta, n_per_snp,
-                                      h32)[0]                      # (NB,)
-            blk = blk & (act_f[0] > 0.0)
-            n_act_blk = jnp.sum(blk).astype(I32)
-            state, eta_diff = cavi_sweep_pallas_s1_skip(
-                ld, c.state, std_beta, n_per_snp, h32, act_f, blk,
-                tile=tile, inner_steps=inner_steps)
-        elif use_skip:
-            # S > 1: a block is active if ANY live model lane still proposes
-            # a step on it (the union gate keeps lane subsetting exact).
-            from .cavi_pallas import (cavi_sweep_pallas_skip_s,
-                                      block_proposal_mask)
-            pm = block_proposal_mask(ld, c.state, std_beta, n_per_snp, h32)
-            blk = jnp.any(pm & (act_f[:, None] > 0.0), axis=0)     # (NB,)
-            state, eta_diff = cavi_sweep_pallas_skip_s(
-                ld, c.state, std_beta, n_per_snp, h32, act_f, blk,
-                tile=tile, inner_steps=inner_steps)
-        elif use_pallas:
-            from .cavi_pallas import cavi_sweep_pallas
-            state, eta_diff = cavi_sweep_pallas(ld, c.state, std_beta,
-                                                n_per_snp, h32, act_f,
-                                                tile=tile,
-                                                inner_steps=inner_steps)
+        if sweep == 'fused':
+            from .cavi_fused import cavi_sweep_fused
+            state, eta_diff = cavi_sweep_fused(
+                ld, c.state, std_beta, n_per_snp, h32, act_f, tile=tile,
+                inner_steps=inner_steps)
         else:
             state, eta_diff = cavi_sweep(ld, c.state, std_beta, n_per_snp,
                                          h32, act_f, tile=tile,
@@ -451,7 +359,6 @@ def em_fit(ld: BlockLD,
 
         hist = lax.dynamic_update_slice(c.elbo_hist, curr_elbo[None, :],
                                         (i, jnp.asarray(0, I32)))
-        act_hist = lax.dynamic_update_slice(c.act_hist, n_act_blk[None], (i,))
 
         return EMCarry(state=state, hyper=hyper, sigma_g=sigma_g, i=i,
                        active=active, status=status, nit=nit,
@@ -460,8 +367,7 @@ def em_fit(ld: BlockLD,
                        stall_counter=stall, sigma_g_counter=sigma_g_counter,
                        div_counter=div_counter, damping=damping,
                        elbo_hist=hist, max_eta_diff=max_ed,
-                       fix_se=fix_se, restarts_left=restarts_left,
-                       act_hist=act_hist)
+                       fix_se=fix_se, restarts_left=restarts_left)
 
     c = lax.while_loop(cond, body, carry)
 
@@ -488,5 +394,4 @@ def em_fit(ld: BlockLD,
                         damping=c.damping),
                     max_eta_diff=c.max_eta_diff,
                     restarts_used=jnp.full(S, max_restarts, I32)
-                    - c.restarts_left,
-                    act_hist=c.act_hist)
+                    - c.restarts_left)

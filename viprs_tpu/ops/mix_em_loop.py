@@ -66,7 +66,7 @@ class MixEMResult(NamedTuple):
 
 
 @partial(jax.jit, static_argnames=('tile', 'max_iter', 'min_iter',
-                                   'inner_steps', 'use_pallas', 'use_skip'))
+                                   'inner_steps'))
 def mix_em_fit(ld: BlockLD,
                state0: MixState,
                std_beta, n_per_snp,
@@ -83,8 +83,6 @@ def mix_em_fit(ld: BlockLD,
                patience: int = 10,
                tile: int = 128,
                inner_steps: int = 8,
-               use_pallas: bool = False,
-               use_skip: bool = False,
                sigma_g0=None):
     """Fused mixture EM. ``d_mult``: (K,) prior-variance multipliers.
 
@@ -139,24 +137,9 @@ def mix_em_fit(ld: BlockLD,
         i = c['i'] + 1
         hy = h32(c['hyper'])
 
-        if use_skip:
-            # Block-skipping mixture sweep (see em_loop.em_fit use_skip):
-            from .cavi_pallas import (cavi_sweep_mixture_pallas_skip,
-                                      mix_block_proposal_mask)
-            blk = mix_block_proposal_mask(ld, c['state'], std_beta,
-                                          n_per_snp, hy)
-            state, eta_diff = cavi_sweep_mixture_pallas_skip(
-                ld, c['state'], std_beta, n_per_snp, hy, blk, tile=tile,
-                inner_steps=inner_steps)
-        elif use_pallas:
-            from .cavi_pallas import cavi_sweep_mixture_pallas
-            state, eta_diff = cavi_sweep_mixture_pallas(
-                ld, c['state'], std_beta, n_per_snp, hy, tile=tile,
-                inner_steps=inner_steps)
-        else:
-            state, eta_diff = cavi_sweep_mixture(ld, c['state'], std_beta,
-                                                 n_per_snp, hy, tile=tile,
-                                                 inner_steps=inner_steps)
+        state, eta_diff = cavi_sweep_mixture(ld, c['state'], std_beta,
+                                             n_per_snp, hy, tile=tile,
+                                             inner_steps=inner_steps)
         vt = mix_var_tau(n_per_snp, hy)
         stats = mix_stats(state, vt, std_beta, mask)
 
@@ -291,7 +274,7 @@ def _mix_stats_batch(state: MixState, var_tau, std_beta, mask):
 
 
 @partial(jax.jit, static_argnames=('tile', 'max_iter', 'min_iter',
-                                   'inner_steps', 'use_pallas', 'use_skip'))
+                                   'inner_steps'))
 def mix_em_fit_batch(ld: BlockLD,
                      state0: MixState,
                      std_beta, n_per_snp,
@@ -311,9 +294,7 @@ def mix_em_fit_batch(ld: BlockLD,
                      sigma_g0=None,
                      i0=0,
                      counters0: MixCounters = None,
-                     init_elbo=None,
-                     use_pallas: bool = False,
-                     use_skip: bool = False):
+                     init_elbo=None):
     """Fused grid-batched mixture EM: all S settings advance together with
     converged-lane masking; the initial objective is computed in-graph.
 
@@ -419,29 +400,9 @@ def mix_em_fit_batch(ld: BlockLD,
         hy = h32(c['hyper'])
         act_f = c['active'].astype(F32) * c['damping']
 
-        if use_skip:
-            # Activity-gated batched sweep: a block is streamed only if ANY
-            # live lane (union over lanes x components) still proposes a
-            # >= eps step on it — the mixture-grid analog of the S>1 skip
-            # path in ops/em_loop.py (reference per-variant threshold,
-            # e_step.hpp:382).
-            from .cavi_pallas import (cavi_sweep_mixture_pallas_skip_batch,
-                                      mix_block_proposal_mask_batch)
-            pm = mix_block_proposal_mask_batch(ld, c['state'], std_beta,
-                                               n_per_snp, hy)     # (S, NB)
-            blk = jnp.any(pm & (act_f[:, None] > 0.0), axis=0)    # (NB,)
-            state, eta_diff = cavi_sweep_mixture_pallas_skip_batch(
-                ld, c['state'], std_beta, n_per_snp, hy, act_f, blk,
-                tile=tile, inner_steps=inner_steps)
-        elif use_pallas:
-            from .cavi_pallas import cavi_sweep_mixture_pallas_batch
-            state, eta_diff = cavi_sweep_mixture_pallas_batch(
-                ld, c['state'], std_beta, n_per_snp, hy, act_f,
-                tile=tile, inner_steps=inner_steps)
-        else:
-            state, eta_diff = cavi_sweep_mixture_batch(
-                ld, c['state'], std_beta, n_per_snp, hy, act_f,
-                tile=tile, inner_steps=inner_steps)
+        state, eta_diff = cavi_sweep_mixture_batch(
+            ld, c['state'], std_beta, n_per_snp, hy, act_f,
+            tile=tile, inner_steps=inner_steps)
         vt = batch_var_tau(hy)
         stats = _mix_stats_batch(state, vt, std_beta, mask)
         hyper, sigma_g, curr_elbo, curr_mse = m_step_elbo(

@@ -2,7 +2,7 @@
 
 Vectorized over the model/grid axis S; reductions follow the framework's
 mixed-precision discipline: per-block float32 partial sums, float64 accumulation
-across blocks (the TPU equivalent of the reference's float64 ELBO accumulation over
+across blocks (the device equivalent of the reference's float64 ELBO accumulation over
 float32 state, VIPRS.py:497-581 & compute_zeta note at :888-897).
 
 Update equations (parity anchors):

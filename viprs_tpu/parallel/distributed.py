@@ -1,10 +1,11 @@
 """Multi-host execution support.
 
 The reference has no distributed backend (its only cross-process mechanism is
-POSIX shared memory for grid search, SURVEY.md §2.4/P7). On TPU pods the same
-program spans hosts: each host runs this code under ``jax.distributed``, arrays
-are sharded over the global ('blocks', 'grid') mesh, and XLA routes the M-step/
-ELBO psums over ICI (DCN is only touched by the host-side data loading).
+POSIX shared memory for grid search, SURVEY.md §2.4/P7). On several hosts the
+same program spans them: each host runs this code under ``jax.distributed``,
+arrays are sharded over the global ('blocks', 'grid') mesh, and XLA routes the
+M-step/ELBO reductions over the device interconnect (the network between hosts
+is only touched by the host-side data loading).
 """
 
 import logging
@@ -18,8 +19,8 @@ def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
     """Initialize multi-host JAX (no-op on a single host).
 
-    On TPU pods the arguments are auto-detected from the environment; on other
-    setups pass them explicitly (see jax.distributed.initialize).
+    Where no cluster environment is detected, pass the coordinator address,
+    process count and process id explicitly (see jax.distributed.initialize).
     """
     try:
         jax.distributed.initialize(coordinator_address=coordinator_address,

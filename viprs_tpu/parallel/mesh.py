@@ -1,7 +1,7 @@
 """Multi-chip sharding of the blocked CAVI problem.
 
 The reference's "distributed" axes are joblib processes over chromosomes and
-shared-memory processes over grid points (SURVEY.md §2.4). On TPU both collapse
+shared-memory processes over grid points (SURVEY.md §2.4). Here both collapse
 into array sharding over a device mesh:
 
 - axis ``blocks``: the NB (LD-block) axis of every array — chromosomes are just
@@ -14,7 +14,7 @@ into array sharding over a device mesh:
 Because the e-step sweep is already expressed as batched ops over (S, NB, B)
 arrays inside one ``jit``, GSPMD partitions it automatically once the inputs
 carry NamedShardings; the M-step/ELBO reductions become cross-device psums
-inserted by XLA over ICI. No communication code is needed here — only
+inserted by XLA. No communication code is needed here — only
 placement.
 """
 
@@ -43,7 +43,7 @@ def resolve_mesh(mesh='auto'):
     """Resolve a user-facing mesh spec into a ('blocks', 'grid') Mesh or None.
 
     This is the product knob replacing the reference CLI's ``--n-jobs``
-    process fan-out (bin/viprs_fit:1079-1086): on TPU the fan-out is array
+    process fan-out (bin/viprs_fit:1079-1086): here the fan-out is array
     sharding over the device mesh, not processes.
 
     :param mesh: one of

@@ -2,14 +2,13 @@
 
 Covers the chromosome-keyed dict algebra of the reference
 (viprs/utils/compute_utils.py) — retained at the *API surface* for users
-migrating from the reference; internally the TPU framework operates on flat
+migrating from the reference; internally the framework operates on flat
 blocked arrays, so these only appear at host-side boundaries (table I/O,
 initialization, eval glue). Implemented here as one generic two-level reducer
 rather than a family of near-identical functions.
 """
 
 import numpy as np
-import pandas as pd
 
 
 def fits_in_memory(alloc_size_mb, max_prop=0.9):

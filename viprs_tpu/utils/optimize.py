@@ -2,7 +2,7 @@
 
 Functional parity with the reference's ``viprs/utils/OptimizeResult.py`` (the
 scipy-like result record with oscillation tracking, and the consecutive-condition
-counter used for patience logic), re-implemented for the TPU framework where most
+counter used for patience logic), re-implemented for this framework where most
 convergence logic runs *on device* — these objects summarize the device-side
 status codes for the host/CLI layer.
 """
